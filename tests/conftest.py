@@ -29,3 +29,10 @@ def make_batch(cfg, B=2, S=16, seed=0):
         batch["patch_embeds"] = jax.random.normal(
             ks[1], (B, F, cfg.d_model), jnp.float32)
     return batch
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card and nvcc; skips elsewhere "
+        "(on a machine with the card and without jax: PYTHONPATH=src python "
+        "-m pytest --noconftest -m cuda tests/test_torch_gpu.py)")
